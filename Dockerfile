@@ -1,7 +1,7 @@
 # Reproducible runtime environment — the rebuild of the reference's Docker
 # setup (its ROS-Noetic image building qhull/ceres/iridescence from source).
 # This engine needs only Python + JAX (+ a C++ toolchain for the native host-IO
-# codec); on TPU VMs install the matching jax[tpu] wheel instead of jax[cpu].
+# codec); for an NVIDIA GPU install JAX with its CUDA plugin (jax[cuda12]).
 
 FROM python:3.12-slim
 
@@ -15,8 +15,8 @@ COPY pointcloudprocessor_tpu ./pointcloudprocessor_tpu
 COPY native ./native
 COPY run_pcd_colorization.sh bench.py ./
 
-# CPU JAX by default; override for TPU hosts:
-#   pip install 'jax[tpu]' -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+# CPU JAX by default; on a host with an NVIDIA GPU use the CUDA plugin:
+#   pip install 'jax[cuda12]'
 RUN pip install --no-cache-dir "jax[cpu]" numpy opencv-python-headless matplotlib scipy \
     && pip install --no-cache-dir -e . \
     && make -C native

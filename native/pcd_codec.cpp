@@ -4,7 +4,7 @@
 // Plays the role PCL's C++ IO plays in the reference
 // (pcl::io::loadPCDFile / PCDWriter at
 // PointCloudProcessor/src/PointCloudProcessor.cpp:112,135,217,542,920):
-// the host-side IO hot path. The TPU does the compute; this library keeps
+// the host-side IO hot path. The accelerator does the compute; this library keeps
 // dataset load/save off the Python interpreter's critical path (a 2M-point
 // ASCII cloud parses ~2 orders of magnitude faster than np.loadtxt).
 //

@@ -19,7 +19,7 @@ from .utils.config import PipelineConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pcp-tpu",
-        description="TPU-native LiDAR-camera colorization + NID pose refinement",
+        description="LiDAR-camera colorization + NID pose refinement on JAX",
     )
     p.add_argument("--config", default="", help="JSON PipelineConfig (overridden by flags)")
     p.add_argument("--point_cloud_path", default=None)
@@ -94,12 +94,15 @@ def main(argv=None) -> int:
     if not cfg.output_path:
         cfg.output_path = "."
 
-    if args.platform:
-        import jax
+    import jax
 
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
     from .pipeline import runner
+    from .utils import compile_cache
+
+    compile_cache.enable()
 
     result = runner.process(cfg)
     summary = {

@@ -1,6 +1,6 @@
 """Structure-of-arrays point cloud with fixed capacity + validity mask.
 
-TPU-native replacement for the reference's SoA container
+Array-native replacement for the reference's SoA container
 (`PointCloudProcessor/include/vlcal/common/frame.hpp:63-72`,
 `frame_cpu.hpp:13-216`) and for PCL clouds. XLA requires static shapes, so
 every filtering stage (crop, cull, SOR, ...) returns the SAME capacity with an

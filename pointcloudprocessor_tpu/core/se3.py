@@ -3,7 +3,7 @@
 Replaces the reference's Sophus::SE3d usage (e.g.
 `PointCloudProcessor/src/vlcal/calib/visual_camera_calibration.cpp:151` and
 the Ceres SE3 manifold) and the slerp/lerp trajectory interpolation of
-`PointCloudProcessor/scripts/pose_interp.py:25-138` with TPU-friendly f32
+`PointCloudProcessor/scripts/pose_interp.py:25-138` with batched f32
 array code.
 
 Conventions
@@ -206,10 +206,9 @@ def transform_xyz(
     """Apply a single transform to points given as separate coordinate
     arrays, returning separate arrays.
 
-    Hot-path form: a materialized (N, 3) result puts the size-3 axis in the
-    TPU lane dimension (padded to 128 — ~40x the memory traffic), which
-    costs ~15 ms per million points per pass. Pipelines keep coordinates as
-    full-lane 1D arrays and only stack at API boundaries.
+    Hot-path form: pipelines keep coordinates as separate 1D arrays and
+    only stack at API boundaries (a materialized (N, 3) result puts a
+    size-3 axis minor, which tiled accelerator layouts pad).
     """
     R = quat_to_matrix(T.q)
     cx = R[0, 0] * x + R[0, 1] * y + R[0, 2] * z + T.t[0]

@@ -1,6 +1,6 @@
 """Camera projection models as pure jittable functions on batched arrays.
 
-TPU-native rebuild of the reference's camera abstraction
+Array-native rebuild of the reference's camera abstraction
 (`PointCloudProcessor/include/camera/generic_camera_base.hpp:18-41`,
 `pinhole.hpp:11-67`, `create_camera.cpp:33-49`). The reference dispatches
 virtually and instantiates Ceres Jets for autodiff; here a camera is a small
@@ -94,8 +94,7 @@ def project_xyz(
     """Project camera-frame points given as separate coordinate arrays to
     pixel coordinate arrays ``(u, v)``.
 
-    Hot-path form: no (N, 3) or (N, 2) stack is ever materialized (tiny
-    trailing axes land in the padded TPU lane dimension — see
+    Hot-path form: no (N, 3) or (N, 2) stack is ever materialized (see
     `se3.transform_xyz`).
     """
     safe_z = jnp.where(jnp.abs(pz) < 1e-9, jnp.where(pz < 0, -1e-9, 1e-9), pz)

@@ -6,7 +6,7 @@ Rebuilds the reference's observation scoring + top-5 blending
 
 The reference accumulates per-point observation LISTS across keyframes
 (hash map of vectors), sorts each by score and blends the top 5. Lists and
-sorts don't map to TPU; instead each point carries a fixed top-K register
+sorts don't map to static shapes; instead each point carries a fixed top-K register
 (scores + colors) updated with a vectorised replace-min as keyframes stream
 through a `lax.scan` — the final top-K set is identical (ties aside) and the
 blend is the same score-weighted average.
@@ -23,9 +23,8 @@ import jax.numpy as jnp
 class TopKColors(NamedTuple):
     """Per-point running best-K color observations.
 
-    TPU layout note: the slot axis K leads (K, N) so the long point axis
-    sits in the 128-lane minor dimension — a (N, K) layout pads K up to 128
-    lanes (25x memory for K=5) and made the register update ~4x slower.
+    Layout note: the slot axis K leads (K, N) so the long point axis is
+    minor (a tiny minor axis K=5 pads in tiled layouts).
     Colors live as 0xRRGGBB-packed int32, one word per observation.
 
     scores: (K, N) finalScore per slot; empty slots hold -inf.
@@ -54,9 +53,7 @@ def pack_image_rgb(image: jnp.ndarray) -> jnp.ndarray:
     """Pack an (H, W, 3) uint8 image into a flat (H*W,) 0xRRGGBB int32 array.
 
     One sequential-bandwidth pass per keyframe; downstream per-point color
-    gathers then fetch ONE int32 word instead of a 3-byte sub-row (TPU
-    gathers are row-granular, and a 3-wide trailing axis wastes the lane
-    dimension).
+    gathers then fetch ONE int32 word instead of a 3-byte sub-row.
     """
     im = image.astype(jnp.int32)
     return ((im[..., 0] << 16) | (im[..., 1] << 8) | im[..., 2]).reshape(-1)

@@ -1,12 +1,12 @@
 """Hidden-point removal: Katz spherical flip + support-function hull test.
 
-TPU-native rebuild of the reference's ACTIVE occlusion-culling path
+Static-shape rebuild of the reference's ACTIVE occlusion-culling path
 (`PointCloudProcessor/src/vlcal/calib/view_culling.cpp:266-334`:
 spherical flip `pt + 2*(R-|pt|)*pt/|pt|` at :292 with R = 90000 from
 `view_culling.hpp:14`, then a qhull convex hull whose vertices are the
 visible points, called from `cull` at :46).
 
-qhull's data-dependent combinatorics cannot run on a TPU, but the hull
+qhull's data-dependent combinatorics have no static-shape form, but the hull
 *membership test* can: a flipped point f_i is a hull vertex iff it is the
 unique maximizer of the support function ⟨f, d⟩ for some direction d.
 Because the flip is radial and R >> |p|, the flipped cloud hugs a sphere of
@@ -20,7 +20,7 @@ viewing ray". Geometrically this hides p_i exactly when a closer point
 q (r_q < r_p) lies within angle θ < sqrt(2·(r_p − r_q − tol)/(2R)) of its
 ray — the same depth-vs-angular-resolution trade-off the qhull hull
 encodes, with R playing the identical role. The whole test is one blocked
-(N,3)×(3,N) max-reduction — dense VPU/MXU work with static shapes, and like
+(N,3)×(3,N) max-reduction — dense array work with static shapes, and like
 `ops/zbuffer.py` it returns a mask over the ORIGINAL indices, which removes
 the reference's kd-tree re-association step (`PointCloudProcessor.cpp:557-571`).
 
@@ -222,7 +222,7 @@ def cull_world_points(
     the camera frustum first (`hidden_points_removal` pre-filters to the
     image bounds + FoV at view_culling.cpp:270-289 before flipping).
 
-    ``impl``: "dense" = exact support matmul (O(N²) MXU work — ~0.4 TFLOP
+    ``impl``: "dense" = exact support matmul (O(N²) work — ~0.4 TFLOP
     per cull at 262k points), "grid" = parabolic-z-buffer approximation
     (O(N), see :func:`hpr_mask_grid`), "auto" = grid above ``dense_cutoff``
     points. Returns (points_camera, visibility_mask).

@@ -1,9 +1,9 @@
-"""Grid-hash neighbor search — the TPU replacement for kd-trees/octrees.
+"""Grid-hash neighbor search — the static-shape replacement for kd-trees/octrees.
 
 The reference leans on PCL kd-trees everywhere (MLS neighborhoods
 `cloudSmooth.cpp:83,127`, SOR, the color-fusion radius search
 `PointCloudProcessor.cpp:480-482,571`, octree smoothing `:642-644`).
-Pointer-chasing trees don't map to the TPU; instead points are bucketed by a
+Pointer-chasing trees don't map to static-shape array code; instead points are bucketed by a
 spatial hash of their voxel cell (`vector3i_hash.hpp:14-37` primes) into a
 fixed (table_size, bucket_capacity) index table built with a sort — O(N log N)
 on device, static shapes — and queries examine the 27 neighboring cells.
@@ -35,10 +35,9 @@ class HashGrid(NamedTuple):
     bucket_points: optional (T, 3*B) point COORDINATES in bucket layout,
         rows laid out [x_0..x_B-1, y_0.., z_0..] (+inf in empty slots).
         Costs T*B*12 bytes but turns the candidate fetch from per-point
-        scalar gathers into contiguous ROW gathers — the scalar-gather form
-        was 6.4 s of a 10 s MLS pass at 1M points on a v5e chip. The long
-        axis stays minor (96 lanes/row): a (B, 3) slice layout gathers 9x
-        slower because the 3-wide minor dim pads into (8, 128) tiles.
+        scalar gathers into contiguous ROW gathers. The long axis stays
+        minor (96 words/row) rather than a (B, 3) slice layout, whose 3-wide
+        minor dim pads in tiled layouts.
     """
 
     buckets: jnp.ndarray
@@ -149,7 +148,7 @@ def candidate_points_dedup(
 
     Replaces the kd-tree radius queries PCL MLS runs per point
     (`cloudSmooth.cpp:124-154`): the reference's kd-tree gets cache reuse
-    between nearby queries for free; this is the TPU equivalent — explicit
+    between nearby queries for free; this is the array equivalent — explicit
     reuse of the shared bucket window across a cell's queries.
     """
     m = q_chunk.shape[0]
@@ -240,7 +239,7 @@ def radius_neighbors_with_points(
     (M, K, 3) — taken from the candidate tensor already in registers, so
     callers skip a second (M, K) scalar gather from ``points``.
 
-    ``select="approx"`` uses `lax.approx_min_k` (the TPU-optimized partial
+    ``select="approx"`` uses `lax.approx_min_k` (an approximate partial
     reduction; exact on CPU) — ~0.95 recall of the true k nearest, right for
     weighted-aggregation consumers like the MLS fits; keep "exact" when the
     caller needs the precise nearest set."""

@@ -1,6 +1,6 @@
 """Voxel-grid ops: hashing, downsampling, budgeted random grid sampling.
 
-TPU-native replacements for the reference's spatial-hash sampling
+Static-shape replacements for the reference's spatial-hash sampling
 (`PointCloudProcessor/include/vlcal/common/vector3i_hash.hpp:14-37`,
 `src/vlcal/common/frame_cpu.cpp:363-451` voxelgrid averaging, `:454-509`
 randomgrid budgeted sampling). Instead of an unordered_map, voxels are keyed

@@ -4,7 +4,7 @@ Replaces the reference's hidden-point removal. The reference's ACTIVE path is
 Katz spherical-flip + qhull convex hull
 (`PointCloudProcessor/src/vlcal/calib/view_culling.cpp:266-334`, called from
 `cull` at :46); qhull's data-dependent output is not expressible as a
-static-shape TPU kernel. The reference ALSO carries a z-buffer depth-culling
+static-shape kernel. The reference ALSO carries a z-buffer depth-culling
 path (`view_culling.cpp:52-174`, 14× image downsample at :63, 0.05 m depth
 epsilon at :157) which it keeps as an alternative; that design IS a pure
 scatter-min and is the one rebuilt here. Both accept/reject the same
@@ -32,12 +32,18 @@ def cull_mask_uv(
     downsample_factor: int = 14,
     depth_epsilon: float = 0.05,
     enable_depth_buffer: bool = True,
+    reduce_buffer=None,
 ) -> jnp.ndarray:
     """Visibility mask from precomputed per-point projections (hot path).
 
-    Taking u/v/z/rng as separate full-lane arrays (rather than (N, 2)/(N, 3)
+    Taking u/v/z/rng as separate 1-D arrays (rather than (N, 2)/(N, 3)
     stacks) lets callers share one projection pass between culling and color
-    sampling and avoids TPU lane-padding on tiny trailing axes.
+    sampling.
+
+    ``reduce_buffer``: callers whose points are one shard of the map pass
+    the cross-shard minimum (e.g. ``lambda b: lax.pmin(b, axis)``), so a
+    point is tested against the nearest return of the WHOLE map in its
+    cell, not just of its own shard.
 
     Stages (matching `view_culling.cpp:52-174` semantics):
       1. in-front gate  z > 0           (:76-80)
@@ -65,6 +71,8 @@ def cull_mask_uv(
 
     zmin = jnp.full((grid_w * grid_h + 1,), big, rng.dtype)
     zmin = zmin.at[cell_masked].min(rng_masked, mode="drop")
+    if reduce_buffer is not None:
+        zmin = reduce_buffer(zmin)
 
     cell_min = zmin[cell_masked]
     return ok & (rng <= cell_min + depth_epsilon)

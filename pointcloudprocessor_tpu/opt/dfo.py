@@ -5,7 +5,7 @@ Parity with the reference's generic DFO headers
 `nelder_mead.hpp:8-117`, `directional_direct_search.hpp:8-99`), which back
 its projection inversion (`estimate_fov.cpp:17-34`, a 2-dof Nelder-Mead).
 
-TPU-native formulation: both optimizers are branch-free `lax.while_loop`
+Array-native formulation: both optimizers are branch-free `lax.while_loop`
 bodies over fixed-shape state, so they jit, vmap (batched independent
 problems — e.g. one inverse-projection per pixel), and differentiate-through
 is not needed (they exist precisely for non-differentiable objectives).

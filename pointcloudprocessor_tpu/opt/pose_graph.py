@@ -12,7 +12,7 @@ posteriori trajectory. This is the rebuild's bundle-adjustment layer
 graph are block-tridiagonal, so the solve is exact block Gaussian
 elimination (a Schur-complement sweep down the chain) in O(K) 6x6 ops via
 `lax.scan` — no dense (6K)^2 matrix is ever materialized, and per-node
-Hessian blocks assembled on keyframe-sharded devices reduce over ICI before
+Hessian blocks assembled on keyframe-sharded devices reduce across devices before
 the tiny replicated sweep (`parallel/pose_graph_shard.py`).
 
 All transforms follow the repo convention: poses are camera-to-world SE(3),

@@ -90,7 +90,6 @@ def _subsample_keyframes(kfs: NIDKeyframe, stride: int) -> NIDKeyframe:
         "frozen_partial_frac",
         "frozen_margin",
         "sort_points",
-        "use_grouped_gather",
         "carry_hessian",
     ),
 )
@@ -115,7 +114,6 @@ def refine_pose(
     frozen_partial_frac: float = 0.0,
     frozen_margin: int = 0,
     sort_points: bool | None = None,
-    use_grouped_gather=None,
     carry_hessian: bool = False,
     ftol: float = 0.0,  # traced (sweepable without recompile)
 ) -> RefineResult:
@@ -124,16 +122,16 @@ def refine_pose(
     ``coarse_outer_iterations`` > 0 enables a coarse-to-fine schedule with
     no reference analogue (the reference always evaluates all points,
     `visual_camera_calibration.cpp:160-178`): the first outer solves run on
-    every ``coarse_stride``-th point — each objective evaluation is
-    gather-bound (see README "NID kernel cost anatomy"), so a 4x subsample
-    cuts the eval cost ~3-4x — and the FINAL outer solves always run at full
+    every ``coarse_stride``-th point — each objective evaluation scales with
+    the point count, so a 4x subsample cuts the eval cost up to 4x — and
+    the FINAL outer solves always run at full
     resolution with identical convergence criteria, so the returned pose
     minimizes the exact full-resolution objective. The NID plateau
     (CLAUDE.md) means coarse iterations only need to reach the basin.
 
     ``frozen_taps`` enables the guarded frozen-gather objective
     (`opt/nid.multi_nid_loss_cached`, no reference analogue): the tap-table
-    row gather — ~70% of an evaluation's device time — is reused across
+    row gather is reused across
     evaluations whose anchor pixels haven't drifted (line-search probes and
     near-convergence steps move projections sub-pixel), and re-gathered as
     soon as more than ``frozen_guard_frac`` of live points drift >= 1 px or
@@ -155,9 +153,9 @@ def refine_pose(
 
     ``frozen_margin`` (static, frozen_taps only; 0..2): cache WIDE
     (4+2m)^2 tap windows instead of 4x4 rows (`opt/nid.build_wide_tap_table`)
-    — the same one gather index per point (per-index cost is flat in row
-    width), but evaluations select the exact 4x4 sub-window with VPU
-    arithmetic for any anchor drift within +-m px, so the refresh guard
+    — the same one gather index per point, but evaluations select the
+    exact 4x4 sub-window with elementwise arithmetic for any anchor drift
+    within +-m px, so the refresh guard
     thresholds shift from 1/2 px to m+1/m+2 px and most refreshes simply
     stop firing. Composes with ``frozen_partial_frac``: the over-margin
     set is a smooth screen-space region, block-coherent under the raster
@@ -171,43 +169,21 @@ def refine_pose(
     ``ftol`` (traced): per-inner-solve relative function-decrease exit
     (Ceres function_tolerance semantics); 0 disables.
     """
-    grouped_resolved = (
-        use_grouped_gather
-        if use_grouped_gather is not None
-        else _nid._use_grouped_default()
-    )
     if sort_points is None:
-        # The raster sort makes the grouped gather's rows near-monotone,
-        # and makes drift fields BLOCK-COHERENT for the partial refresh
-        # (the over-margin set is a smooth region in screen space, so in
-        # raster order it occupies contiguous bands of 128-point blocks —
-        # in map order every block is dirty and the partial path cannot
-        # win). Without either consumer it is pure overhead (a sort per
+        # The raster sort makes drift fields BLOCK-COHERENT for the partial
+        # refresh (the over-margin set is a smooth region in screen space,
+        # so in raster order it occupies contiguous bands of 128-point
+        # blocks — in map order every block is dirty and the partial path
+        # cannot win). Without it the sort is pure overhead (a sort per
         # solve) plus an f32 summation-order change.
-        sort_points = bool(grouped_resolved) or (
-            frozen_taps and frozen_partial_frac > 0
-        )
-    coarse_loss_fn = loss_fn
+        sort_points = frozen_taps and frozen_partial_frac > 0
     if loss_fn is multi_nid_loss:
         # Pose-independent tap tables: built once here, reused by every
-        # objective evaluation inside the solver loops (slab layout only
-        # when the grouped gather will actually run; the wide window table
-        # only when the frozen cache will select from it).
+        # objective evaluation inside the solver loops (the wide window
+        # table only when the frozen cache will select from it).
         kfs = _nid.prepare_keyframes(
-            kfs,
-            build_slabs=bool(grouped_resolved),
-            wide_margin=frozen_margin if frozen_taps else 0,
+            kfs, wide_margin=frozen_margin if frozen_taps else 0
         )
-        # Thread the grouped-gather choice through the default objective
-        # (the partial is created inside the trace, so the jit cache keys
-        # on `use_grouped_gather`, not on partial identity).
-        loss_fn = functools.partial(multi_nid_loss, use_grouped=use_grouped_gather)
-        # The coarse phase's strided subsample multiplies sorted-point
-        # gaps by the stride: measured at stride 4 (slab_gather_probe),
-        # group spans grow ~4x and the grouped windows' traffic cancels
-        # the subsampling's gather saving — the plain per-point take is
-        # the right gather there.
-        coarse_loss_fn = functools.partial(multi_nid_loss, use_grouped=False)
     else:
         # A custom loss (e.g. the sharded one) must bring its own frozen
         # implementation (parallel/nid_shard.make_sharded_frozen).
@@ -216,18 +192,14 @@ def refine_pose(
         )
     if sort_points:
         # Raster-sort the points ONCE at the solve's start pose: the NID
-        # histograms are permutation-invariant (up to f32 summation order),
-        # and sorted points make every tap gather's rows near-monotone —
-        # the precondition for the grouped slab gather's fast path
-        # (ops/tap_gather.py). The trust region bounds pose motion, so the
-        # order stays near-sorted for the whole solve.
+        # histograms are permutation-invariant (up to f32 summation order).
+        # The trust region bounds pose motion, so the order stays
+        # near-sorted for the whole solve.
         kfs = _nid.sort_by_raster(camera, T_init, kfs)
     make_cache_fn, cached_loss_fn = frozen_impl or (
-        functools.partial(_nid.make_tap_cache, use_grouped=use_grouped_gather),
+        _nid.make_tap_cache,
         functools.partial(
-            _nid.multi_nid_loss_cached,
-            use_grouped=use_grouped_gather,
-            partial_frac=frozen_partial_frac,
+            _nid.multi_nid_loss_cached, partial_frac=frozen_partial_frac
         ),
     )
     eye6 = jnp.eye(6, dtype=T_init.t.dtype)
@@ -243,11 +215,10 @@ def refine_pose(
         drift: jnp.ndarray
         H: jnp.ndarray  # carried inverse-Hessian metric (carry_hessian)
 
-    def solve_phase(init: Outer, phase_kfs, max_iters, use_frozen,
-                    phase_loss_fn=None) -> Outer:
+    def solve_phase(init: Outer, phase_kfs, max_iters, use_frozen) -> Outer:
         objective = _guarded_objective(
             camera, phase_kfs, bins, trust_region_trans, trust_region_rot,
-            phase_loss_fn or loss_fn,
+            loss_fn,
         )
 
         def cond(st: Outer):
@@ -382,7 +353,6 @@ def refine_pose(
             _subsample_keyframes(kfs, coarse_stride),
             coarse_outer_iterations,
             use_frozen=False,
-            phase_loss_fn=coarse_loss_fn,
         )
         # Fine phase starts from the coarse pose with a reset iteration /
         # convergence state (the coarse phase only warms the initial guess).
@@ -437,7 +407,7 @@ def refine_pose_per_keyframe(
 ) -> RefineResult:
     """Independent NID correction per keyframe (batched solves, lockstep).
 
-    The TPU-native generalization of the reference's per-keyframe manual
+    The batched generalization of the reference's per-keyframe manual
     optimized poses (`FrameData::addManualOptimizedPose`, honored by the
     colorization branch `PointCloudProcessor.cpp:510-519`): where the
     reference needs a human in the GUI loop per keyframe, here every
@@ -465,12 +435,6 @@ def refine_pose_per_keyframe(
             delta_rot_thresh=delta_rot_thresh,
             trust_region_trans=trust_region_trans,
             trust_region_rot=trust_region_rot,
-            # Under this vmap the grouped gather's overflow cond would
-            # lower to a both-paths select (see multi_nid_loss); the direct
-            # per-point take is the right path here, and without it the
-            # raster sort buys nothing.
-            sort_points=False,
-            use_grouped_gather=False,
         )
 
     return jax.vmap(solve_one)(

@@ -6,11 +6,13 @@ splits both ways:
 
 * keyframes shard over ``kf`` — each device row scans only its local
   keyframes (the OpenMP-over-keyframes analogue, but across chips);
-* map points shard over ``pt`` — each column owns a slice of the cloud.
+* map points shard over ``pt`` — each column owns a slice of the cloud;
+  the per-keyframe z-buffer reduces over ``pt`` (`pmin`, one coarse
+  buffer per keyframe) so occluders on another shard still occlude.
 
 Cross-keyframe merge: every device ends with a top-K register for ITS
 keyframes; registers `all_gather` over ``kf`` (K_dev * top_k floats per
-point — tiny next to the image data, and it rides ICI) and a single
+point — tiny next to the image data) and a single
 `top_k` re-selects the global best K. The result is identical to the
 serial scan (ties aside) because top-K of a union equals top-K of
 concatenated per-shard top-Ks.
@@ -86,6 +88,9 @@ def fuse_sharded(
                 mask_image=m, camera_position_world=t,
                 downsample_factor=downsample_factor, depth_epsilon=depth_epsilon,
                 optimal_distance=optimal_distance, score_floor=score_floor,
+                # Occluders may live on another point shard: every device
+                # tests its points against the z-buffer of the whole map.
+                zbuffer_reduce=lambda zb: jax.lax.pmin(zb, mesh_lib.PT_AXIS),
             )
             topk = fusion.update_topk(topk, obs.score, obs.rgb_packed, obs.visible)
             s = jnp.where(obs.visible, obs.score, -jnp.inf)

@@ -3,17 +3,20 @@
 The reference is single-process: its only parallelism is OpenMP thread teams
 (keyframe NID costs `visual_camera_calibration.cpp:110-114`, RANSAC
 hypotheses `estimate_pose.cpp:99-131`, color smoothing
-`PointCloudProcessor.cpp:647-694`). The TPU-native equivalents scale across
-chips/hosts instead:
+`PointCloudProcessor.cpp:647-694`). Here the same work scales across
+devices instead:
 
 * axis ``kf`` — keyframes (the OpenMP-over-costs analogue): each device
-  evaluates NID for its keyframe shard; residuals/gradients `psum` over ICI.
+  evaluates NID for its keyframe shard; residuals/gradients `psum` across
+  devices.
 * axis ``pt`` — map points (data parallel over the long axis): histograms
   and fusion registers are point-sharded, reduced with `psum` where needed.
 
-Multi-host: `jax.distributed.initialize()` + the same mesh spanning all
-processes; in-slice reductions ride ICI, host-sharded inputs arrive over DCN
-(no file round-trips, unlike the reference's ASCII-PCD hand-offs,
+The mesh only reshapes the device list: the GPUs of one host are joined
+all to all (NVLink), so no device order is better than another and the
+mesh shape follows the algorithm alone. Multi-process:
+`jax.distributed.initialize()` + the same mesh spanning all processes (no
+file round-trips, unlike the reference's ASCII-PCD hand-offs,
 `PointCloudProcessor.cpp:213-222`).
 """
 
@@ -68,8 +71,8 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 
 def init_distributed() -> None:
-    """Multi-host entry: initialize the jax.distributed runtime (a no-op in
-    single-process runs). Call before device queries on pods."""
+    """Multi-process entry: initialize the jax.distributed runtime (a no-op
+    in single-process runs). Call before device queries."""
     try:
         jax.distributed.initialize()
     except (ValueError, RuntimeError):

@@ -1,13 +1,13 @@
 """Multi-device NID refinement: keyframes and points sharded over a mesh.
 
-The TPU-native replacement for the reference's OpenMP parallel cost
+The multi-device replacement for the reference's OpenMP parallel cost
 evaluation (`visual_camera_calibration.cpp:110-114`): each device computes
 the NID histograms for its (keyframe-shard × point-shard), histograms
 reduce over the point axis with `psum`, per-keyframe NIDs reduce over the
 keyframe axis with `psum`. The BFGS state (6-dim tangent + 6x6 inverse
 Hessian) is replicated — collectives carry only (bins x bins + 2*bins + 1)
-floats per keyframe per evaluation, so the solve is ICI-bandwidth-trivial
-and compute-bound on the projection/gather/matmul.
+floats per keyframe per evaluation, so the solve needs next to no
+interconnect bandwidth and is bound by the projection/gather/histogram.
 """
 
 from __future__ import annotations
@@ -54,19 +54,12 @@ def sharded_multi_nid_loss(
 
     kfs = prepare_keyframes(kfs)  # no-op when the solver prepared already
 
-    def local(points, intensity, valid, bin_image, tap_rows, tap_slabs):
+    def local(points, intensity, valid, bin_image, tap_rows):
         # points: (K_local, N_local, 3) etc.; bin_image: (K_local, H, W).
-        # The tap gather is hoisted out of the keyframe vmap into one
-        # flattened shard-local call (same restructure as
-        # opt/nid.multi_nid_loss): bit-identical histograms, but the
-        # grouped slab gather's overflow cond stays a real branch — it is
-        # shard-local (no collectives inside), so devices may take
-        # different branches safely.
-        lk = NIDKeyframe(points, intensity, valid, bin_image, tap_rows,
-                         tap_slabs)
+        lk = NIDKeyframe(points, intensity, valid, bin_image, tap_rows)
         proj, knot, inl = _project_all(camera, T_camera_lidar, lk)
         s = proj - knot.astype(proj.dtype)
-        taps = _gather_taps(camera, lk, knot, inl)
+        taps = _gather_taps(camera, lk, knot)
         inl_f = inl.astype(proj.dtype)
 
         def per_kf(taps1, s1, inten1, inl1):
@@ -84,21 +77,11 @@ def sharded_multi_nid_loss(
         local_sum = jnp.sum(jax.vmap(per_kf)(taps, s, intensity, inl_f))
         return jax.lax.psum(local_sum, mesh_lib.KF_AXIS)
 
-    if kfs.tap_slabs is None:
-        def local5(points, intensity, valid, bin_image, tap_rows):
-            return local(points, intensity, valid, bin_image, tap_rows, None)
-
-        fn, args, extra_specs = local5, (), ()
-    else:
-        fn = local
-        args = (kfs.tap_slabs,)
-        extra_specs = (P(mesh_lib.KF_AXIS),)  # tap_slabs (replicated over pt)
-
     # check_vma=False: the Pallas histogram kernel's out_shape carries no
-    # varying-mesh-axes annotation, which trips shard_map's vma checker on
-    # TPU; replication of the psum'd scalar output is guaranteed manually.
+    # varying-mesh-axes annotation, which trips shard_map's vma checker;
+    # replication of the psum'd scalar output is guaranteed manually.
     return jax.shard_map(
-        fn,
+        local,
         mesh=mesh,
         check_vma=False,
         in_specs=(
@@ -107,9 +90,9 @@ def sharded_multi_nid_loss(
             P(mesh_lib.KF_AXIS, mesh_lib.PT_AXIS),  # valid
             P(mesh_lib.KF_AXIS),  # bin_image (replicated over pt)
             P(mesh_lib.KF_AXIS),  # tap_rows (replicated over pt)
-        ) + extra_specs,
+        ),
         out_specs=P(),
-    )(kfs.points, kfs.intensity, kfs.valid, kfs.bin_image, kfs.tap_rows, *args)
+    )(kfs.points, kfs.intensity, kfs.valid, kfs.bin_image, kfs.tap_rows)
 
 
 def make_sharded_loss(mesh: Mesh):
@@ -147,31 +130,19 @@ def make_sharded_frozen(mesh: Mesh, partial_frac: float = 0.0):
 
     def _table_args(kfs):
         """(extra shard_map args, extra in_specs, rebuild) for the optional
-        slab/wide tables — sharded over kf, replicated over pt. ``rebuild``
+        wide table — sharded over kf, replicated over pt. ``rebuild``
         reassembles a local NIDKeyframe from (points, intensity, valid,
         tap_rows, *extras) with the right optional fields."""
-        extras, specs = [], []
-        has_slabs = kfs.tap_slabs is not None
-        has_wide = kfs.tap_wide is not None
-        if has_slabs:
-            extras.append(kfs.tap_slabs)
-            specs.append(pk)
-        if has_wide:
-            extras.append(kfs.tap_wide)
-            specs.append(pk)
+        if kfs.tap_wide is None:
+            extras, specs = (), ()
+        else:
+            extras, specs = (kfs.tap_wide,), (pk,)
 
         def rebuild(points, intensity, valid, tap_rows, *ex):
-            i = 0
-            slabs = wide = None
-            if has_slabs:
-                slabs = ex[i]
-                i += 1
-            if has_wide:
-                wide = ex[i]
             return NIDKeyframe(points, intensity, valid, None, tap_rows,
-                               slabs, wide)
+                               ex[0] if ex else None)
 
-        return tuple(extras), tuple(specs), rebuild
+        return extras, specs, rebuild
 
     def make_cache(camera, T, kfs) -> TapCache:
         _, _, rebuild = _table_args(kfs)
@@ -182,7 +153,7 @@ def make_sharded_frozen(mesh: Mesh, partial_frac: float = 0.0):
             if _nid._wide_margin_of(lk):
                 taps = _nid._gather_wide(camera, lk, knot)
             else:
-                taps = _gather_taps(camera, lk, knot, inl)
+                taps = _gather_taps(camera, lk, knot)
             return taps, knot, inl.astype(proj.dtype)
 
         args, specs, _ = _table_args(kfs)
@@ -247,7 +218,7 @@ def make_sharded_frozen(mesh: Mesh, partial_frac: float = 0.0):
                 taps_f = (
                     _nid._gather_wide(camera, lk, knot_true)
                     if margin
-                    else _gather_taps(camera, lk, knot_true, inl_true)
+                    else _gather_taps(camera, lk, knot_true)
                 )
                 return taps_f, knot_true, inl_true_f, jnp.asarray(1, jnp.int32)
 
@@ -449,8 +420,8 @@ def refine_pose_sharded(
     the points, see :func:`make_sharded_frozen` — and the coarse-to-fine
     schedule: the coarse phase's strided point subsample slices the SHARDED
     point axis, so each device's shard subsamples locally and the histogram
-    psum tree is unchanged; exposing it here gives the bench's headline
-    frozen+c2f config a multi-device twin, VERDICT r3 #3)."""
+    psum tree is unchanged; it gives the tuned frozen+c2f schedule a
+    multi-device twin)."""
     from ..opt.refine import refine_pose
 
     # Tap tables built once, outside the solver loops (sharded over kf with

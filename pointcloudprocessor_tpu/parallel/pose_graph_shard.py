@@ -5,7 +5,7 @@ measurement lives on the device that produced it
 (`refine_per_keyframe_sharded` leaves its RefineResult kf-sharded), so the
 corresponding unary normal-equation blocks — ``w J^T J`` (6x6) and
 ``-w J^T r`` (6,) per node — are assembled in place with `shard_map` over
-the ``kf`` axis and only then gathered over ICI for the chain solve. The
+the ``kf`` axis and only then gathered for the chain solve. The
 gathered payload is 42 floats per keyframe per Gauss-Newton iteration,
 so the distributed smoother is latency-, not bandwidth-, bound; the
 block-tridiagonal Schur sweep itself (`opt.pose_graph.solve_block_
@@ -64,7 +64,7 @@ def optimize_sharded(
 
     Semantically identical to the local solver (tests assert equality);
     the difference is placement: node states replicate, measurement blocks
-    assemble on their home shard and reduce over ICI.
+    assemble on their home shard and reduce across devices.
     """
     K = poses.q.shape[0]
     dtype = poses.q.dtype

@@ -35,7 +35,7 @@ from ..ops import fusion, zbuffer
 class KeyframeObservation(NamedTuple):
     """Per-point observation of one keyframe (all (N,) / (N,.) aligned with
     the input map cloud). Colors are 0xRRGGBB-packed int32 — unpack with
-    `fusion.unpack_rgb` at API boundaries; the packed form keeps the TPU
+    `fusion.unpack_rgb` at API boundaries; the packed form keeps the
     gather and top-K register traffic at one word per observation."""
 
     points_camera: jnp.ndarray  # (N, 3)
@@ -67,14 +67,14 @@ def observe_keyframe(
     hpr_tolerance: float = 0.05,
     hpr_impl: str = "auto",
     hpr_dense_cutoff: int = 100_000,
+    zbuffer_reduce=None,
 ) -> KeyframeObservation:
     """Project the map into one keyframe: cull, sample colors, score.
 
     Fuses the reference's transform -> cull -> generateColorMap -> score
     sequence (`PointCloudProcessor.cpp:495-591`) into one traced graph.
     All per-point intermediates flow as separate 1D arrays (u, v, z, range)
-    — materialized (N, 2)/(N, 3) stacks waste the TPU lane dimension and
-    cost ~5x on this path.
+    rather than materialized (N, 2)/(N, 3) stacks.
 
     ``culling_method`` selects the visibility test, mirroring the refine
     path's `CullingConfig.method`: the reference runs its ONE culling
@@ -83,6 +83,10 @@ def observe_keyframe(
     configured for HPR culling, the fusion's per-keyframe visibility must
     be the HPR mask as well, or fused colors diverge from the reference
     at occlusion shadow boundaries (golden-occluded parity).
+
+    ``zbuffer_reduce``: cross-shard reduction of the z-buffer when
+    ``points_world`` is one shard of the map (see
+    `ops/zbuffer.cull_mask_uv`'s ``reduce_buffer``).
     """
     x, y, z = se3.transform_xyz(
         T_camera_world,
@@ -111,6 +115,7 @@ def observe_keyframe(
         vis = zbuffer.cull_mask_uv(
             camera, u, v, z, rng, valid,
             downsample_factor=downsample_factor, depth_epsilon=depth_epsilon,
+            reduce_buffer=zbuffer_reduce,
         )
 
     h, w = image_rgb.shape[0], image_rgb.shape[1]
@@ -270,8 +275,8 @@ def fuse(
     (`PointCloudProcessor.cpp:507,516`); it may be a single transform (NID)
     or batched per keyframe (manual per-keyframe poses, the
     `frame->getManualOptimizedPose()` branch at :510-519). Keyframes stream
-    through `lax.scan` so only one image is resident in VMEM-adjacent
-    working set at a time; the per-point top-K registers are the only
+    through `lax.scan` so only one image is in the working set at a
+    time; the per-point top-K registers are the only
     cross-keyframe state.
     """
     n = points_world.shape[0]

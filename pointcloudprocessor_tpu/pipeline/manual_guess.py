@@ -8,7 +8,7 @@ pixel<->3D-point correspondences per keyframe, presses "Estimate"
 keyframe, :232-250, consumed by colorization at
 `PointCloudProcessor.cpp:510-519`).
 
-A GUI cannot run on a TPU pod, so the rebuild splits the feature at the
+A GUI cannot run on a headless accelerator host, so the rebuild splits the feature at the
 estimation seam: correspondences arrive in a JSON file (picked with any
 external tool, e.g. the reference GUI itself or an image annotator) and the
 estimation + save steps run batch. Schema — keys are the keyframe timestamp

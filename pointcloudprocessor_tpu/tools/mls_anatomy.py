@@ -1,8 +1,6 @@
 """MLS cost anatomy: per-stage device-time breakdown of the full MLS pass.
 
-VERDICT r3 #5: MLS is the pipeline's dominant stage with --enableMLS
-(0.355 Mpts/s => 2.8 s at 1M points) and, unlike NID, never had a measured
-breakdown. This tool times nested prefixes of the pass on the hardened
+MLS is the pipeline's largest stage with --enableMLS. This tool times nested prefixes of the pass on the hardened
 bench scene (`bench._mls_scene`):
 
   grid    : hash-grid build (sort + scatter, ops/knn.build store_points)
@@ -12,9 +10,9 @@ bench scene (`bench._mls_scene`):
             6x6 polynomial solves (ops/mls.fit_surfaces)
   full    : + projection (= ops/mls._mls_smooth_jit, what mls_smooth runs)
 
-Successive differences attribute the cost per stage. Timing protocol =
-CLAUDE.md: chained repetitions inside one jit (a data-dependent point
-perturbation serializes iterations), median of 3 calls, floor tripwire.
+Successive differences attribute the cost per stage. Timing: chained
+repetitions inside one jit (a data-dependent point perturbation serializes
+iterations), median of 3 calls, floor tripwire.
 
 Usage: python -m pointcloudprocessor_tpu.tools.mls_anatomy [--quick]
 """
@@ -38,13 +36,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))), ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
-    except Exception as e:  # pragma: no cover
-        print(f"# cache unavailable: {e}", file=sys.stderr)
+    from ..utils import compile_cache
+
+    compile_cache.enable(min_compile_time_secs=10.0)
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
@@ -159,8 +153,7 @@ def main():
         _, acc = jax.lax.fori_loop(0, reps, body, (points, jnp.float32(0.0)))
         return acc
 
-    # Floors: the full pass measured ~2.8 s at 1M (round 3); even the grid
-    # build alone is a 1M-point sort, physically >= ~5 ms.
+    # Floors: even the grid build alone is a 1M-point sort.
     scale = n / 1e6
     floors = {"grid": 0.004 * scale, "cand": 0.01 * scale,
               "cand_pts": 0.008 * scale, "neigh": 0.02 * scale,

@@ -28,13 +28,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))), ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
-    except Exception as e:  # pragma: no cover
-        print(f"# cache unavailable: {e}", file=sys.stderr)
+    from ..utils import compile_cache
+
+    compile_cache.enable(min_compile_time_secs=10.0)
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))

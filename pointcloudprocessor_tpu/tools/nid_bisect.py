@@ -1,10 +1,7 @@
-"""Bisect the NID evaluation cost on the real chip (round-3 perf hunt).
+"""Bisect the NID evaluation cost on the device.
 
-The round-3 profile (see tools/nid_locality.py + the trace parse) shows one
-XLA fusion at ~22.8 ms of the ~25.8 ms device time per value+grad eval at
-benchmark scale, while the fused Pallas histogram kernels cost ~2 ms
-combined. This tool times stripped-down variants of the forward NID to
-attribute that fusion: projection-only, +gather, gather flavors
+Times stripped-down variants of the forward NID to attribute an
+evaluation's device time: projection-only, +gather, gather flavors
 (take vs lax.gather sorted-hint), one-hot marginal, full forward, full
 value+grad.
 
@@ -25,7 +22,52 @@ import jax.numpy as jnp
 from ..core import se3
 from ..models import camera as cam
 from ..opt import nid
-from .nid_locality import build_scene
+
+
+def build_scene(width, height, n_pts, k):
+    """Synthesize K camera-frame keyframes on device: points back-projected
+    from uniform-random pixels (map order == random raster order, matching
+    the bench's argsort-culled sets), textured bin images."""
+    f_px = 4818.2 * (width / 4096.0)
+    camera = cam.PinholeCamera(
+        intrinsic=jnp.asarray([f_px, f_px, width / 2.0, height / 2.0], jnp.float32),
+        distortion=jnp.zeros(5, jnp.float32),
+        width=width,
+        height=height,
+    )
+
+    @jax.jit
+    def make(seed):
+        def one(key):
+            k1, k2, k3 = jax.random.split(key, 3)
+            u = jax.random.uniform(k1, (n_pts,), jnp.float32, 2.0, width - 3.0)
+            v = jax.random.uniform(k2, (n_pts,), jnp.float32, 2.0, height - 3.0)
+            z = jax.random.uniform(k3, (n_pts,), jnp.float32, 4.0, 8.0)
+            x = (u - width / 2.0) / f_px * z
+            y = (v - height / 2.0) / f_px * z
+            pts = jnp.stack([x, y, z], -1)
+            inten = jnp.clip(
+                0.5 + 0.25 * jnp.sin(0.01 * u) + 0.25 * jnp.cos(0.013 * v), 0.0, 1.0
+            )
+            uu = jnp.arange(width, dtype=jnp.float32)[None, :]
+            vv = jnp.arange(height, dtype=jnp.float32)[:, None]
+            img = jnp.clip(
+                0.5 + 0.25 * jnp.sin(0.01 * uu) + 0.25 * jnp.cos(0.013 * vv), 0.0, 1.0
+            )
+            return pts, inten, nid.quantize_image(img, 16)
+
+        keys = jax.random.split(jax.random.PRNGKey(seed), k)
+        pts, inten, bins = jax.lax.map(one, keys)
+        return pts, inten, bins
+
+    pts, inten, bins = jax.block_until_ready(make(0))
+    kfs = nid.NIDKeyframe(
+        points=pts,
+        intensity=inten,
+        valid=jnp.ones((k, n_pts), bool),
+        bin_image=bins,
+    )
+    return camera, kfs
 
 
 def _loop(reps, body, init):
@@ -120,15 +162,9 @@ def main():
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
-    try:
-        import os
+    from ..utils import compile_cache
 
-        jax.config.update("jax_compilation_cache_dir", os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))), ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
-    except Exception as e:  # pragma: no cover
-        print(f"# cache unavailable: {e}", file=sys.stderr)
+    compile_cache.enable(min_compile_time_secs=10.0)
 
     if args.quick:
         width, height, n_pts, k = 512, 384, 32_768, 4

@@ -1,7 +1,7 @@
 """Multi-device scaling benchmark: sharded NID refine + sharded fusion.
 
 Measures the BASELINE.md scaling targets: throughput at 1 / 2 / N devices
-and parallel efficiency. On a real multi-chip slice this measures ICI
+and parallel efficiency. On real GPUs this measures interconnect
 scaling; on a single-chip or CPU host, pass ``--virtual N`` to run on N
 virtual CPU devices — that validates the SPMD path end-to-end (shardings,
 collectives, convergence) but NOT speedup, since virtual devices share the
@@ -45,8 +45,8 @@ def run_once(n_devices: int, k: int, n_points: int, width: int, height: int,
     )
     f_px, wall_z = width / 2.0, 5.0
 
-    # Key passed as an ARGUMENT: a zero-arg jit is fully constant-folded by
-    # the (remote, single-threaded) compiler on TPU backends — see CLAUDE.md.
+    # Key passed as an ARGUMENT: a zero-arg jit is fully constant-folded at
+    # compile time.
     @jax.jit
     def make(key):
         k1, k2 = jax.random.split(key)

@@ -114,7 +114,7 @@ class MLSConfig:
     vgd_iterations: int = 4
     sor_mean_k: int = 60
     sor_std_dev: float = 0.7
-    # TPU grid-hash parameters (no reference analogue: replaces kd-tree).
+    # Grid-hash parameters (no reference analogue: replaces kd-tree).
     max_neighbors: int = 32
     bucket_capacity: int = 32
 
@@ -138,7 +138,7 @@ class NIDConfig:
     # the same culled clouds every outer iter
     # (visual_camera_calibration.cpp:160-167) — so default False.
     recull_every_outer_iter: bool = False
-    # Solve an independent correction per keyframe (the TPU-native
+    # Solve an independent correction per keyframe (the batched
     # generalization of per-keyframe manual poses, FrameData.cpp:31-34)
     # instead of the reference's single shared correction.
     per_keyframe: bool = False
@@ -167,7 +167,7 @@ class NIDConfig:
     frozen_partial_frac: float = 0.0
     # Wide frozen-cache window margin in pixels (0..2; opt/nid
     # build_wide_tap_table): cache (4+2m)^2 tap windows so anchors may
-    # drift +-m px with an exact VPU sub-window select before any refresh
+    # drift +-m px with an exact elementwise sub-window select before any refresh
     # is needed. 0 = round-4 behavior (4x4 rows, 1 px guard).
     frozen_margin: int = 0
     # Warm-start each inner BFGS with the previous solve's inverse-Hessian
@@ -223,6 +223,10 @@ class PipelineConfig:
     point_cloud_path: str = ""
     odometry_path: str = ""
     images_folder: str = ""
+    # Image file extension bound to each odometry timestamp
+    # (`PointCloudProcessor.cpp:984` uses ".jpg"; ".png" decodes without
+    # OpenCV or Pillow, see io/images.py).
+    image_ext: str = ".jpg"
     mask_image_folder: str = ""
     output_path: str = ""
     enable_mls: bool = False

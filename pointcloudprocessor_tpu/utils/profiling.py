@@ -70,19 +70,41 @@ def annotate(name: str):
 # Per-stage byte/FLOP estimates + roofline positioning (SURVEY §5).
 #
 # Analytic counts from array shapes — the structured replacement for the
-# reference's nothing. Peaks default to TPU v5e (1 chip): 197 TFLOP/s bf16
-# MXU, ~49 TFLOP/s f32, 819 GB/s HBM.
+# reference's nothing. Peak rates come from a table keyed by the device's
+# `device_kind`; a device that is not in it gets counts and no peak-derived
+# field (nothing assumes a rate).
 # ---------------------------------------------------------------------------
 
-V5E_PEAK_F32_FLOPS = 4.9e13
-V5E_PEAK_BF16_FLOPS = 1.97e14
-V5E_HBM_BYTES_PER_S = 8.19e11
+# Published dense peaks (no sparsity) at the full power limit. Source:
+# NVIDIA H100 Tensor Core GPU data sheet (SXM5 and PCIe parts). f32 is the
+# CUDA-core rate (what HIGHEST-precision f32 work runs at); tf32 and bf16
+# are tensor-core rates.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {  # SXM5
+        "f32_flops": 67e12,
+        "tf32_flops": 495e12,
+        "bf16_flops": 989e12,
+        "hbm_bytes_per_s": 3.35e12,
+    },
+    "NVIDIA H100 PCIe": {
+        "f32_flops": 51e12,
+        "tf32_flops": 378e12,
+        "bf16_flops": 756e12,
+        "hbm_bytes_per_s": 2.0e12,
+    },
+}
+
+
+def peaks_for(device_kind: str) -> Optional[dict]:
+    """Peak rates of ``device_kind`` (`jax.Device.device_kind`), or None for
+    a device the table does not know (the CPU included)."""
+    return DEVICE_PEAKS.get(device_kind)
 
 
 def roofline(flops: float, bytes_moved: float,
-             peak_flops: float = V5E_PEAK_F32_FLOPS,
-             peak_bw: float = V5E_HBM_BYTES_PER_S) -> dict:
-    """Arithmetic intensity + bound classification + speed-of-light time."""
+             peak_flops: float, peak_bw: float) -> dict:
+    """Arithmetic intensity + bound classification + speed-of-light time
+    against the given peaks (FLOP/s and bytes/s)."""
     intensity = flops / max(bytes_moved, 1.0)
     ridge = peak_flops / peak_bw
     t_compute = flops / peak_flops
@@ -104,13 +126,13 @@ def nid_cost_estimate(n_points: int, k_frames: int, bins: int = 16,
     Per point: project (~30 flops), spline weights (2x ~16), 16-tap
     histogram accumulate (16 madd); adjoint ~= forward (hand-written bwd).
     Bytes: points xyz + intensity + 16 nibble-packed taps (8 B) per point —
-    the histogram tree reduction lives in VMEM.
+    the histogram reduction stays on chip. Returns {"flops", "bytes"}.
     """
     per_point = 30 + 32 + 2 * 16
     total = n_points * k_frames
     flops = total * per_point * (2.0 if with_grad else 1.0)
     bytes_moved = total * (12 + 4 + 8) * (2.0 if with_grad else 1.0)
-    return roofline(flops, bytes_moved)
+    return {"flops": flops, "bytes": bytes_moved}
 
 
 def colorize_fuse_cost(n_map: int, k_frames: int, height: int, width: int,
@@ -124,7 +146,7 @@ def colorize_fuse_cost(n_map: int, k_frames: int, height: int, width: int,
         k_frames * height * width * 4        # packed image build + gathers
         + n_map * k_frames * (12 + 4 + 4 + 8)  # xyz in, rgb word, cell, topk rw
     )
-    return roofline(flops, bytes_moved)
+    return {"flops": flops, "bytes": bytes_moved}
 
 
 def mls_cost_estimate(n_points: int, max_neighbors: int = 32) -> dict:
@@ -133,13 +155,13 @@ def mls_cost_estimate(n_points: int, max_neighbors: int = 32) -> dict:
     per_point = 27 * 8 + max_neighbors * (25 + 72) + 200 + 36
     flops = n_points * per_point
     bytes_moved = n_points * (12 + max_neighbors * 16 + 12 + 24)
-    return roofline(flops, bytes_moved)
+    return {"flops": flops, "bytes": bytes_moved}
 
 
 def hpr_cost_estimate(n_points: int, impl: str = "grid",
                       grid_size: int = 512, window: int = 16) -> dict:
     """HPR cull (ops/hpr.py): dense = N^2 support matmul (3 madd/pair at
-    Precision.HIGHEST ~ 6 f32-equivalent passes); grid = O(N) scatter/gather
+    Precision.HIGHEST ~ 6 bf16-pass equivalents); grid = O(N) scatter/gather
     + separable parabolic erosion."""
     if impl == "dense":
         flops = 6.0 * n_points * n_points * 2 * 3
@@ -147,7 +169,18 @@ def hpr_cost_estimate(n_points: int, impl: str = "grid",
     else:
         flops = n_points * 40 + grid_size * grid_size * (2 * window + 1) * 2 * 2
         bytes_moved = n_points * (12 + 4 + 4 + 4) + grid_size * grid_size * 4 * 4
-    return roofline(flops, bytes_moved)
+    return {"flops": flops, "bytes": bytes_moved}
+
+
+def cost_record(cost: dict, device_kind: str, peak: str = "f32_flops") -> dict:
+    """A stage's {"flops", "bytes"} for the metrics stream, with the
+    roofline fields against ``device_kind``'s ``peak`` rate when the peak
+    table knows the device, and counts alone when it does not."""
+    peaks = peaks_for(device_kind)
+    if peaks is None:
+        return dict(cost)
+    return roofline(cost["flops"], cost["bytes"], peaks[peak],
+                    peaks["hbm_bytes_per_s"])
 
 
 class MetricsLogger:

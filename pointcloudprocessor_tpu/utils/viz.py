@@ -1,6 +1,6 @@
 """Headless visualization: LiDAR-image overlays and cloud renders.
 
-Rebuild of the reference's L7 viewer stack for display-less TPU hosts:
+Rebuild of the reference's L7 viewer stack for display-less accelerator hosts:
 
 - :func:`overlay_intensity` — the `PointsColorUpdater` live recoloring
   (`PointCloudProcessor/src/vlcal/common/points_color_updater.cpp:37-61`:

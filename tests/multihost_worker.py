@@ -2,8 +2,8 @@
 test_multihost.py). Launched twice: `python multihost_worker.py <proc> <port>`.
 
 Each process owns 2 virtual CPU devices; together they form the same
-(kf=2, pt=2) mesh a 2-host TPU slice would, with cross-process collectives
-over Gloo standing in for DCN. The sharded NID loss must match the
+(kf=2, pt=2) mesh a 2-host deployment would, with cross-process collectives
+over Gloo standing in for the network. The sharded NID loss must match the
 single-process value computed from the identical full arrays.
 """
 

@@ -1,7 +1,7 @@
 """Reference-faithful f64 NumPy oracle of the full reference pipeline.
 
 Single-threaded, float64, no JAX: a direct transliteration of the reference
-C++ so behavioral parity of the TPU engine can be ASSERTED, not inferred from
+C++ so behavioral parity of the JAX engine can be ASSERTED, not inferred from
 synthetic proxies. Every function cites the reference source it transliterates
 (paths relative to /root/reference/PointCloudProcessor).
 
@@ -193,6 +193,25 @@ def nid_cost(T_camera_lidar, points, intensities, gray01, camera, bins=16):
     histogram scatter uses `np.add.at` (f64 accumulation; the C++ sums in
     a different order — differences are ~1e-15 relative).
     """
+    hist, hist_image, hist_points = nid_histograms(
+        T_camera_lidar, points, intensities, gray01, camera, bins
+    )
+    ssum = hist_points.sum()  # :95
+    if ssum == 0:
+        return 1.0
+    pj = hist / ssum
+    pi_ = hist_image / ssum
+    pp = hist_points / ssum
+    Hi = -(pi_ * np.log(pi_ + 1e-6)).sum()  # :101
+    Hp = -(pp * np.log(pp + 1e-6)).sum()
+    Hj = -(pj * np.log(pj + 1e-6)).sum()
+    MI = Hi + Hp - Hj
+    return (Hj - MI) / Hj  # :105
+
+
+def nid_histograms(T_camera_lidar, points, intensities, gray01, camera, bins=16):
+    """The unnormalized histograms of :func:`nid_cost` (nid_cost.hpp:42-92):
+    joint [image_bin, point_bin], image marginal, point marginal (f64)."""
     T = np.asarray(T_camera_lidar, np.float64)
     pc = points @ T[:3, :3].T + T[:3, 3]
     H, W = gray01.shape
@@ -225,18 +244,7 @@ def nid_cost(T_camera_lidar, points, intensities, gray01, camera, bins=16):
             bi = bin_map[ky, kx]
             np.add.at(hist, (bi, bps), w)  # :87-89
             np.add.at(hist_image, bi, w)
-
-    ssum = hist_points.sum()  # :95
-    if ssum == 0:
-        return 1.0
-    pj = hist / ssum
-    pi_ = hist_image / ssum
-    pp = hist_points / ssum
-    Hi = -(pi_ * np.log(pi_ + 1e-6)).sum()  # :101
-    Hp = -(pp * np.log(pp + 1e-6)).sum()
-    Hj = -(pj * np.log(pj + 1e-6)).sum()
-    MI = Hi + Hp - Hj
-    return (Hj - MI) / Hj  # :105
+    return hist, hist_image, hist_points
 
 
 # ---------------------------------------------------------------------------

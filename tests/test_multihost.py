@@ -1,5 +1,5 @@
 """Multi-process `jax.distributed` test: 2 processes x 2 virtual CPU devices
-form a (kf=2, pt=2) mesh (Gloo collectives standing in for DCN, per the
+form a (kf=2, pt=2) mesh (Gloo collectives standing in for the network, per the
 SURVEY §4 multi-host test strategy); the sharded NID loss must equal the
 single-process value. The reference has no multi-process path at all — this
 covers the rebuild's `jax.distributed` runtime (parallel/mesh.py)."""

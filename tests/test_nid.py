@@ -160,9 +160,19 @@ def test_multi_nid_sums_keyframes():
     np.testing.assert_allclose(double, 2 * single, rtol=1e-5)
 
 
+def _random_kernel_inputs(n, seed=0, masked_frac=0.2):
+    rng = np.random.default_rng(seed)
+    taps = nid.pack_tap_nibbles(jnp.asarray(rng.integers(0, 16, (n, 16))))
+    s = jnp.asarray(rng.uniform(0, 1, (n, 2)).astype(np.float32))
+    bp = jnp.asarray(rng.integers(0, 16, (n,)).astype(np.int32))
+    il = jnp.asarray((rng.uniform(size=n) >= masked_frac).astype(np.float32))
+    return taps, s, bp, il
+
+
 class TestPallasHistogram:
-    """Fused Pallas joint-histogram kernel (ops/nid_hist.py) vs the XLA path,
-    run in interpreter mode on CPU (compiled on real TPU backends)."""
+    """Fused joint-histogram kernel (ops/nid_hist.py, Pallas through
+    Triton) vs the XLA path, run by the Pallas interpreter on CPU (compiled
+    for the card on CUDA devices; chip_smoke.py compares it there)."""
 
     def _patch_interpret(self, monkeypatch):
         from pointcloudprocessor_tpu.ops import nid_hist
@@ -182,7 +192,7 @@ class TestPallasHistogram:
         T = se3.exp(jnp.asarray([0.01, -0.005, 0.002, 0.003, -0.001, 0.002], jnp.float32))
         hx = nid.nid_histograms(c, T, kf, 16, use_pallas=False)
         hp = nid.nid_histograms(c, T, kf, 16, use_pallas=True)
-        np.testing.assert_allclose(np.asarray(hx[0]), np.asarray(hp[0]).T, atol=2e-3)
+        np.testing.assert_allclose(np.asarray(hx[0]), np.asarray(hp[0]), atol=2e-3)
         np.testing.assert_allclose(np.asarray(hx[1]), np.asarray(hp[1]), atol=2e-3)
         np.testing.assert_allclose(np.asarray(hx[2]), np.asarray(hp[2]), atol=1e-5)
         assert float(hx[3]) == float(hp[3])
@@ -203,46 +213,91 @@ class TestPallasHistogram:
         np.testing.assert_allclose(g_p, g_x, rtol=2e-3, atol=1e-6)
 
     def test_padding_does_not_leak(self, monkeypatch):
-        """Non-multiple-of-block sizes: padded tail must contribute zero."""
+        """Sizes that are not a multiple of the block: the masked tail
+        must contribute zero."""
         self._patch_interpret(monkeypatch)
         from pointcloudprocessor_tpu.ops import nid_hist
 
-        rng = np.random.default_rng(0)
-        n = 1000  # not a multiple of the 2048 block
-        taps = nid.pack_tap_nibbles(jnp.asarray(rng.integers(0, 16, (n, 16))))
-        s = jnp.asarray(rng.uniform(0, 1, (n, 2)).astype(np.float32))
-        bp = jnp.asarray(rng.integers(0, 16, (n,)).astype(np.int32))
+        n = 1000  # not a multiple of the 512-point block
+        taps, s, bp, _ = _random_kernel_inputs(n)
         il = jnp.ones((n,), jnp.float32)
         h = nid_hist.joint_histogram(taps, s, bp, il, 16)
         np.testing.assert_allclose(float(jnp.sum(h)), n, rtol=1e-5)
 
+    def test_per_program_partials(self):
+        """Each program writes the joint histogram of exactly its own block
+        of points (the last one masked past N); the sum is the XLA joint."""
+        from pointcloudprocessor_tpu.ops import nid_hist
 
-def test_gather_impls_bit_identical_through_refine():
-    """The three tap-gather implementations (direct take / XLA-take
-    windowed / Pallas-DMA streamed — ops/tap_gather, interpret-mode
-    kernels on CPU) must drive refine_pose to BIT-IDENTICAL objectives:
-    the gather is pure data movement, so any divergence is a bug (the
-    round-4 on-chip tripwire caught exactly such a silent Mosaic
-    precision divergence; this is its CPU-side twin at the solve level)."""
+        n = 3 * nid_hist.BLOCK + 17
+        taps, s, bp, il = _random_kernel_inputs(n, seed=1)
+        parts = np.asarray(nid_hist.partial_histograms(taps, s, bp, il, interpret=True))
+        assert parts.shape == (nid_hist.num_programs(n), 16, 16) == (4, 16, 16)
+        for i in range(parts.shape[0]):
+            blk = slice(i * nid_hist.BLOCK, min((i + 1) * nid_hist.BLOCK, n))
+            want = nid._joint_histogram_xla(taps[blk], s[blk], bp[blk], il[blk], 16)
+            np.testing.assert_allclose(parts[i], np.asarray(want), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("bins", [8, 16])
+    def test_value_and_gradient_match_xla_by_bins(self, bins):
+        """Fewer than 16 bins slice the kernel's 16x16 histogram; value and the
+        custom-VJP gradient through s match the XLA path, under vmap."""
+        from pointcloudprocessor_tpu.ops import nid_hist
+
+        n = 1537
+        taps, s, _, il = _random_kernel_inputs(n, seed=2)
+        rng = np.random.default_rng(3)
+        bp = jnp.asarray(rng.integers(0, bins, (n,)).astype(np.int32))
+        # Image bins < `bins` too, as a quantized image guarantees.
+        taps = nid.pack_tap_nibbles(jnp.asarray(rng.integers(0, bins, (n, 16))))
+        wgt = jnp.asarray(rng.normal(size=(bins, bins)).astype(np.float32))
+
+        def f_kernel(s_):
+            return jnp.sum(nid_hist.joint_histogram(taps, s_, bp, il, bins, True) * wgt)
+
+        def f_xla(s_):
+            return jnp.sum(nid._joint_histogram_xla(taps, s_, bp, il, bins) * wgt)
+
+        np.testing.assert_allclose(float(f_kernel(s)), float(f_xla(s)), rtol=1e-5)
+        np.testing.assert_allclose(
+            np.asarray(jax.grad(f_kernel)(s)), np.asarray(jax.grad(f_xla)(s)),
+            rtol=1e-4, atol=1e-5,
+        )
+        batched = jax.vmap(
+            lambda s_: nid_hist.joint_histogram(taps, s_, bp, il, bins, True)
+        )(jnp.stack([s, 1.0 - s]))
+        np.testing.assert_allclose(
+            np.asarray(batched[1]),
+            np.asarray(nid._joint_histogram_xla(taps, 1.0 - s, bp, il, bins)),
+            rtol=1e-5, atol=1e-5,
+        )
+
+
+def test_default_histogram_is_xla_on_cpu():
+    """use_pallas=None picks the implementation when the program is lowered
+    (jax.lax.platform_dependent): the CPU program holds no Pallas kernel,
+    and matches the explicit XLA path exactly."""
     c = simple_camera()
     pts, inten, img = nid_scene(c)
     kf = make_keyframe(c, pts, inten, img)
-    kfs = nid.NIDKeyframe(
-        points=kf.points[None], intensity=kf.intensity[None],
-        valid=kf.valid[None], bin_image=kf.bin_image[None],
-    )
-    T0 = se3.exp(jnp.asarray([0.015, -0.01, 0.006, 0.004, -0.003, 0.005],
-                             jnp.float32))
-    # sort_points pinned True everywhere: the grouped paths auto-sort and
-    # the f32 summation ORDER is part of the exact value — only with one
-    # shared order is solve-level bit-identity the correct expectation.
-    kw = dict(max_inner_iterations=25, max_outer_iterations=2,
-              sort_points=True)
-    base = refine.refine_pose(c, kfs, T0, **kw)
-    for impl in (True, "streamed"):
-        got = refine.refine_pose(c, kfs, T0, use_grouped_gather=impl, **kw)
-        assert float(got.nid) == float(base.nid), (impl, float(got.nid),
-                                                   float(base.nid))
+    T = se3.exp(jnp.asarray([0.01, -0.005, 0.002, 0.003, -0.001, 0.002], jnp.float32))
+    auto = jax.jit(lambda k: nid.nid_loss(c, T, k))
+    hlo = auto.lower(kf).as_text()
+    assert "nid_joint_hist" not in hlo and "triton" not in hlo.lower()
+    xla = jax.jit(lambda k: nid.nid_loss(c, T, k, use_pallas=False))
+    assert float(auto(kf)) == float(xla(kf))
+
+
+@pytest.mark.gpu
+def test_kernel_compiled_for_gpu_matches_xla(gpu_device):
+    """The fused kernel compiled for the card (no interpreter) against the
+    XLA path; chip_smoke.py repeats this at 8 x 262,144 points."""
+    from pointcloudprocessor_tpu.ops import nid_hist
+
+    args = [jax.device_put(a, gpu_device) for a in _random_kernel_inputs(5000)]
+    hk = jax.jit(lambda *a: nid_hist.joint_histogram(*a, 16))(*args)
+    hx = jax.jit(lambda *a: nid._joint_histogram_xla(*a, 16))(*args)
+    np.testing.assert_allclose(np.asarray(hk), np.asarray(hx), rtol=1e-5, atol=1e-3)
 
 
 def test_sort_by_raster_preserves_objective_and_gradient():
@@ -505,7 +560,7 @@ def _px_shift(c, px, wall_z=5.0):
 def test_wide_cache_exact_within_margin_no_refresh():
     """With a margin-2 wide window cache, a 1.5 px anchor drift must (a)
     fire NO refresh and (b) still evaluate the EXACT objective bit-for-bit
-    (value and gradient): the VPU sub-window select reproduces the fresh
+    (value and gradient): the elementwise sub-window select reproduces the fresh
     4x4 tap row for every in-margin point."""
     c = simple_camera()
     kfs = _wide_batch(c, margin=2)

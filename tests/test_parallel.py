@@ -111,6 +111,40 @@ def test_sharded_fusion_matches_unsharded():
     np.testing.assert_array_equal(np.asarray(got.best_label), np.asarray(want.best_label))
 
 
+def test_sharded_fusion_occluder_on_another_point_shard():
+    """The occluder's points sit at the END of the map array, so on a
+    (kf=2, pt=4) mesh they live on other point shards than most of the
+    wall they hide: the z-buffer must reduce across the shards, or hidden
+    wall points would be colored (they were, before the pmin)."""
+    from pointcloudprocessor_tpu.parallel import fusion_shard
+    from pointcloudprocessor_tpu.pipeline import colorize
+    from synthetic import wall_scene
+
+    c = simple_camera()
+    pts_np, is_occ, hidden = wall_scene(c, n_side=64)
+    n = len(pts_np) - len(pts_np) % 8
+    pts = jnp.asarray(pts_np[-n:])  # keep the occluder tail, N % 8 == 0
+    valid = jnp.ones((n,), bool)
+    k = 2
+    rng = np.random.default_rng(1)
+    images = jnp.asarray(rng.integers(0, 255, (k, c.height, c.width, 3)).astype(np.uint8))
+    poses = se3.SE3(
+        q=jnp.tile(jnp.asarray([[1.0, 0, 0, 0]], jnp.float32), (k, 1)),
+        t=jnp.zeros((k, 3), jnp.float32),
+    )
+    kw = dict(downsample_factor=4, depth_epsilon=0.3)
+    want = colorize.fuse(c, pts, valid, images, poses, se3.identity(), **kw)
+    got = fusion_shard.fuse_sharded(
+        c, pts, valid, images, poses, se3.identity(),
+        mesh_lib.make_mesh(kf=2, pt=4), **kw,
+    )
+    hidden_wall = hidden[-n:] & ~is_occ[-n:]
+    assert hidden_wall.sum() > 50
+    assert not np.asarray(want.colored)[hidden_wall].any()
+    np.testing.assert_array_equal(np.asarray(got.colored), np.asarray(want.colored))
+    np.testing.assert_allclose(np.asarray(got.rgb), np.asarray(want.rgb), atol=1e-3)
+
+
 def test_sharded_frozen_refine_matches_serial_frozen():
     """frozen_taps under the sharded loss: the cache shards with the points,
     the staleness decision is psum'd (every device takes the same cond

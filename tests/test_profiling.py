@@ -11,6 +11,7 @@ import os
 import time
 
 import numpy as np
+import pytest
 
 from pointcloudprocessor_tpu.utils import profiling as prof
 
@@ -35,15 +36,45 @@ def test_metrics_logger_jsonl(tmp_path):
     prof.MetricsLogger(None).log("noop")  # disabled path
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+
+
 def test_roofline_classification():
-    # Pure-bandwidth op: 1 flop/byte << ridge (~60 on v5e f32).
-    r = prof.roofline(1e9, 1e9)
+    peaks = prof.peaks_for(H100)
+    f32, bw = peaks["f32_flops"], peaks["hbm_bytes_per_s"]
+    # Pure-bandwidth op: 1 flop/byte << ridge (~20 flop/byte for f32).
+    r = prof.roofline(1e9, 1e9, f32, bw)
     assert r["bound"] == "memory"
-    assert r["speed_of_light_s"] == round(1e9 / prof.V5E_HBM_BYTES_PER_S, 6)
+    assert r["speed_of_light_s"] == round(1e9 / bw, 6)
     # Dense matmul-like: far above the ridge.
-    r2 = prof.roofline(1e15, 1e9)
+    r2 = prof.roofline(1e15, 1e9, f32, bw)
     assert r2["bound"] == "compute"
     assert r2["intensity_flop_per_byte"] > r2["ridge_flop_per_byte"]
+
+
+@pytest.mark.parametrize(
+    "kind,bw", [("NVIDIA H100 80GB HBM3", 3.35e12), ("NVIDIA H100 PCIe", 2.0e12)]
+)
+def test_peak_table_knows_h100(kind, bw):
+    """device_kind strings as JAX reports them (the SXM5 card reads
+    "NVIDIA H100 80GB HBM3"); peaks from NVIDIA's data sheet."""
+    peaks = prof.peaks_for(kind)
+    assert peaks["hbm_bytes_per_s"] == bw
+    assert peaks["f32_flops"] < peaks["tf32_flops"] < peaks["bf16_flops"]
+    rec = prof.cost_record({"flops": 1e12, "bytes": 1e10}, kind)
+    assert rec["speed_of_light_s"] > 0 and rec["bound"] in ("compute", "memory")
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", "NVIDIA L4"])
+def test_unknown_device_gets_counts_and_no_peak_fields(kind):
+    assert prof.peaks_for(kind) is None
+    rec = prof.cost_record(prof.nid_cost_estimate(1000, 2), kind)
+    assert set(rec) == {"flops", "bytes"}
+
+
+def test_roofline_needs_explicit_peaks():
+    with pytest.raises(TypeError):
+        prof.roofline(1e9, 1e9)
 
 
 def test_stage_estimates_scale_linearly():
@@ -83,4 +114,6 @@ def test_runner_logs_cost_estimates(tmp_path):
     names = {e["event"] for e in events}
     assert {"cost_estimate_nid", "cost_estimate_colorize"} <= names
     nid = next(e for e in events if e["event"] == "cost_estimate_nid")
-    assert nid["flops"] > 0 and nid["bound"] in ("compute", "memory")
+    # CPU is not in the peak table: counts only, no rate is assumed.
+    assert nid["flops"] > 0 and nid["bytes"] > 0
+    assert "bound" not in nid and "speed_of_light_s" not in nid

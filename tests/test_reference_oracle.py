@@ -1,4 +1,4 @@
-"""Golden behavioral-parity tests: TPU engine vs the f64 NumPy reference
+"""Golden behavioral-parity tests: JAX engine vs the f64 NumPy reference
 oracle (tests/reference_oracle.py — a transliteration of the reference C++,
 see its module docstring for the file:line map).
 
